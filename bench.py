@@ -1,8 +1,7 @@
-"""Headline benchmark: train throughput (examples/sec/chip) on whatever
-accelerator JAX exposes.
+"""Headline benchmark: train throughput (examples/sec/card) on the GPU.
 
 Default (no args) is the flagship config — 2-block CARCA d=64, seq 50,
-cross-attention decoder, batch 256, auto-selected attention kernel —
+cross-attention decoder, batch 256 —
 compared against the measured reference throughput in
 BASELINE_MEASURED.json (the reference repo publishes no numbers —
 SURVEY.md §6; we measured its PyTorch training loop on this host's CPU).
@@ -12,7 +11,12 @@ configs[3]) and compares against VALIDATION_men_ref.json instead.
 ``batch`` field since the baseline was measured at 256.
 
 Prints ONE JSON line:
-    {"metric": "...", "value": N, "unit": "...", "vs_baseline": N}
+    {"metric": "...", "value": N, "unit": "...", "vs_baseline": N,
+     "mfu": ..., "hbm_bw_util": ..., "device": {...}}
+
+``mfu`` divides the analytic matmul FLOPs by the card's tensor-core peak
+for the model's compute dtype (TF32 for f32, bf16 for bf16 —
+``utils/flops.py``); an unknown card raises rather than printing none.
 
 ``vs_baseline`` falls back to 1.0 when the baseline file is absent.
 """
@@ -65,7 +69,6 @@ def build_setup(config: str, batch: int):
         dropout=0.5, embedding="all", encoding="identity",
         decoder="dot" if at_scale else "ca",
         compute_dtype="bfloat16" if at_scale else "float32",
-        use_pallas="auto",
     )
     tc = TrainConfig(batch_size=batch, seed=0)
     tx = make_optimizer(tc)
@@ -97,6 +100,8 @@ def build_setup(config: str, batch: int):
 
 
 def main() -> None:
+    from carca_tpu.utils.hostenv import enable_compilation_cache
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=("flagship", "men", "10m"),
                     default="flagship",
@@ -104,7 +109,7 @@ def main() -> None:
                          "configs[3]); reference measured 52.16 ex/s there "
                          "(VALIDATION_men_ref.json). 10m = the 10M-item "
                          "catalog shape (BASELINE configs[4]): device-"
-                         "generated catalog, lane-packed tables, lazy "
+                         "generated catalog, bf16 compute, lazy "
                          "sparse Adam — no reference counterpart (its "
                          "torch-CPU loop cannot hold the table)")
     ap.add_argument("--batch", type=int, default=256,
@@ -116,14 +121,12 @@ def main() -> None:
     step, state, attrs, dd, chunks, inner, tc, mc = build_setup(
         args.config, args.batch)
 
-    from carca_tpu.utils.timing import sync
-
     for i in range(2):  # warmup + compile
         state, losses = step(state, attrs, dd.arrays, chunks[i % len(chunks)])
-    sync(losses)
+    jax.block_until_ready(losses)
 
-    # median of N timed windows: single-window numbers on this host swing
-    # ~5-8% run-to-run (queue warmup, relay jitter); the median is stable
+    # median of N timed windows: the median is stable where single
+    # windows jitter
     n_windows = 5
     n_calls = max(1, 100 // inner)
     rates = []
@@ -132,22 +135,23 @@ def main() -> None:
         for i in range(n_calls):
             state, losses = step(state, attrs, dd.arrays,
                                  chunks[i % len(chunks)])
-        sync(losses)  # value fetch of the final loss drains the queue
+        jax.block_until_ready(losses)
         dt = time.perf_counter() - t0
         rates.append(n_calls * inner * tc.batch_size / dt)
 
     examples_per_sec = statistics.median(rates)
 
     # MFU: analytic matmul FLOPs/step over measured step time vs the
-    # chip's bf16 peak (utils/flops.py) — utilization context the raw
-    # vs-torch-CPU ratio can't give. None on unknown chips.
+    # card's peak for the compute dtype (utils/flops.py) — utilization
+    # context the raw vs-torch-CPU ratio can't give
     from carca_tpu.utils.flops import (device_peak_flops,
                                        device_peak_hbm_bps,
                                        train_step_flops,
                                        train_step_hbm_bytes)
-    peak = device_peak_flops(jax.devices()[0])
+    dev = jax.devices()[0]
+    peak = device_peak_flops(dev, mc.compute_dtype)
     mfu = (train_step_flops(mc, tc.batch_size) * examples_per_sec
-           / tc.batch_size / peak) if peak else None
+           / tc.batch_size / peak)
 
     # bandwidth roofline companion to MFU: modeled HBM bytes/step
     # (optimizer+grad streams, table gathers/scatters, batch IO, fwd
@@ -159,7 +163,7 @@ def main() -> None:
     hbm_gbps = (train_step_hbm_bytes(mc, tc.batch_size,
                                      sparse_items=at_scale)
                 * steps_per_sec / 1e9)
-    hbm_peak = device_peak_hbm_bps(jax.devices()[0])
+    hbm_peak = device_peak_hbm_bps(dev)
     xla_gbps = None
     try:
         ca = step.lower(state, attrs, dd.arrays, chunks[0]).compile()
@@ -184,7 +188,7 @@ def main() -> None:
     out = {
         "metric": f"train_examples_per_sec_{args.config}",
         "value": round(examples_per_sec, 1),
-        "unit": "examples/sec/chip",
+        "unit": "examples/sec/card",
         "vs_baseline": round(examples_per_sec / baseline, 3) if baseline else 1.0,
     }
     # variance context so round-over-round comparisons can tell jitter
@@ -192,14 +196,14 @@ def main() -> None:
     out["rates"] = {"min": round(min(rates), 1),
                     "median": round(examples_per_sec, 1),
                     "max": round(max(rates), 1)}
-    if mfu is not None:
-        out["mfu"] = round(mfu, 4)
+    out["mfu"] = round(mfu, 4)
     out["hbm_gbps"] = round(hbm_gbps, 1)
     if xla_gbps is not None:
         out["hbm_gbps_xla"] = round(xla_gbps, 1)
-    if hbm_peak is not None:
-        out["hbm_bw_util"] = round(
-            max(hbm_gbps, xla_gbps or 0.0) * 1e9 / hbm_peak, 4)
+    out["hbm_bw_util"] = round(
+        max(hbm_gbps, xla_gbps or 0.0) * 1e9 / hbm_peak, 4)
+    out["device"] = {"platform": dev.platform, "kind": dev.device_kind,
+                     "count": len(jax.devices())}
     if args.batch != 256:  # reference was measured at 256
         out["batch"] = args.batch
     print(json.dumps(out))

@@ -1,16 +1,16 @@
-"""carca_tpu — a TPU-native CARCA-style sequential scoring engine.
+"""carca_tpu — a CARCA-style sequential scoring engine in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the PyTorch
+A JAX/XLA/Pallas framework with the capabilities of the PyTorch
 reference ``r-papso/carca-replication`` (context- and attribute-aware
-sequential recommendation via cross-attention, RecSys'22), architected for
-TPU from scratch:
+sequential recommendation via cross-attention, RecSys'22), built for an
+accelerator (an NVIDIA H100 GPU):
 
 * pure-functional model core (params are pytrees; ``init``/``apply`` pairs)
-* device-resident item catalog: attribute vectors live in HBM and are
-  gathered on device from int32 ids (the reference ships dense
+* device-resident item catalog: attribute vectors live in device memory
+  and are gathered on device from int32 ids (the reference ships dense
   ``[B, L, n_attrs]`` float tensors from host every step)
-* fused Pallas attention kernels for the profile self-attention encoder and
-  the cross-attention candidate scorer
+* a fused Pallas (Triton-route) kernel for the full-catalog retrieval
+  scan; attention is plain jnp that XLA fuses
 * ``jax.sharding.Mesh('data','model')`` parallelism: batch-sharded data
   parallel training, row-sharded embedding/attribute tables with XLA
   collectives, sharded full-catalog retrieval top-k
@@ -26,16 +26,12 @@ import os as _os
 
 import jax as _jax
 
-# Default to the hardware RNG on TPU: jax's threefry PRNG dominates the
-# training step at production batch sizes (measured 48.7 ms/step of pure
-# bernoulli at B=2048 vs 6.6 ms total with rbg — the dropout sites draw
-# ~35M bits/step). Override with CARCA_PRNG_IMPL=threefry2x32 if bit-exact
-# key-derivation portability across backends matters more than speed.
+# PRNG implementation override (e.g. CARCA_PRNG_IMPL=rbg): the dropout
+# sites draw tens of millions of bits per step, so the generator can show
+# in the step time. Default: JAX's own (threefry2x32).
 _impl = _os.environ.get("CARCA_PRNG_IMPL")
 if _impl:
     _jax.config.update("jax_default_prng_impl", _impl)
-elif _jax.default_backend() == "tpu":
-    _jax.config.update("jax_default_prng_impl", "rbg")
 
 from carca_tpu.config import (  # noqa: E402
     DataConfig,

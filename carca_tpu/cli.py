@@ -5,10 +5,14 @@ so existing invocations port directly, with fixes/additions:
 
 * booleans parse strictly (``--residual_sa false`` works; the reference's
   ``type=bool`` treats any string as True);
-* ``--device`` is accepted-and-ignored (JAX picks the backend; TPU when
-  present);
-* TPU-native flags: ``--compute_dtype``, ``--use_pallas``, ``--mesh``,
-  ``--preset``, ``--synthetic``, ``--resume``.
+* ``--device`` is accepted-and-ignored (JAX picks the backend: the GPU
+  when present);
+* added flags: ``--compute_dtype``, ``--mesh``, ``--preset``,
+  ``--synthetic``, ``--resume``.
+
+Compiled executables are cached across processes
+(``utils/hostenv.enable_compilation_cache``: ``JAX_COMPILATION_CACHE_DIR``
+when set, else ``<repo>/.jax_cache``).
 
 Usage:
     python -m carca_tpu.cli --data_dir DATA --profile_file profiles.txt \
@@ -22,7 +26,7 @@ import argparse
 from typing import Optional
 
 from carca_tpu.config import (Config, DataConfig, ModelConfig, TrainConfig,
-                              parse_bool, parse_pallas_flag, preset)
+                              parse_bool, parse_tristate, preset)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,20 +76,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", type=str, default="carca",
                    help="carca (train) | knn (eval-only content baseline)")
 
-    # TPU-native additions
+    # additions
     p.add_argument("--preset", type=str, default="",
                    help="named BASELINE config: beauty|games|fashion|men|synthetic10m|smoke")
     p.add_argument("--compute_dtype", type=str, default="float32")
-    p.add_argument("--use_pallas", type=parse_pallas_flag, default="auto",
-                   help="true | false | auto (per-callsite by tile size)")
     p.add_argument("--remat", type=parse_bool, default=False)
-    p.add_argument("--pack_tables", type=parse_pallas_flag, default="auto",
+    p.add_argument("--pack_tables", type=parse_tristate, default="auto",
                    help="lane-pack sub-128-wide embedding tables: true | "
-                        "false | auto (>=1M-row tables)")
-    p.add_argument("--compilation_cache", type=str, default="",
-                   help="persistent XLA compilation-cache directory: "
-                        "compiled executables are reused across processes "
-                        "(kills the multi-minute first-compile on restarts)")
+                        "false | auto (never on the GPU)")
     p.add_argument("--synthetic", type=parse_bool, default=False)
     p.add_argument("--synthetic_users", type=int, default=2000)
     p.add_argument("--synthetic_items", type=int, default=1000)
@@ -114,12 +112,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("uniform", "popularity"),
                    help="train negatives (device pipeline): uniform = "
                         "reference protocol; popularity = empirical unigram")
-    p.add_argument("--exact_rejection", type=parse_pallas_flag, default="auto",
+    p.add_argument("--exact_rejection", type=parse_tristate, default="auto",
                    help="device-pipeline negative rejection: true = reject "
                         "vs the user's full history (reference protocol), "
                         "false = visible window only, auto = full history "
                         "when max history <= 4x seq_len")
-    p.add_argument("--sparse_items_adam", type=parse_pallas_flag,
+    p.add_argument("--sparse_items_adam", type=parse_tristate,
                    default="auto",
                    help="lazy row-sparse Adam for the item table (device "
                         "pipeline, single chip): true | false | auto "
@@ -202,7 +200,7 @@ _PRESET_OVERLAY = {
         "synthetic": "synthetic",
     },
     "model": {
-        "use_pallas": "use_pallas", "compute_dtype": "compute_dtype",
+        "compute_dtype": "compute_dtype",
         "remat": "remat", "dropout": "dropout", "l2_norm": "l2_norm",
         "gamma": "gamma", "pack_tables": "pack_tables",
         # plug-board ablations on top of a preset (e.g. the round-5
@@ -266,8 +264,8 @@ def config_from_args(args, n_items: int, n_attrs: int, n_ctx: int) -> Config:
         embedding=args.embedding.lower(), encoding=args.encoding.lower(),
         decoder=args.decoder.lower(), residual_sa=args.residual_sa,
         residual_ca=args.residual_ca, gamma=args.gamma, l2_norm=args.l2_norm,
-        compute_dtype=args.compute_dtype, use_pallas=args.use_pallas,
-        remat=args.remat, pack_tables=args.pack_tables,
+        compute_dtype=args.compute_dtype, remat=args.remat,
+        pack_tables=args.pack_tables,
     )
     dc = DataConfig(
         data_dir=args.data_dir, profile_file=args.profile_file,
@@ -326,13 +324,12 @@ def load_catalog(args, dc=None):
 
 
 def main(argv: Optional[list] = None) -> None:
+    from carca_tpu.utils.hostenv import enable_compilation_cache
+    enable_compilation_cache()
     args = build_parser().parse_args(argv)
-    if args.compilation_cache:
-        from carca_tpu.utils.hostenv import enable_compilation_cache
-        enable_compilation_cache(args.compilation_cache)
     if args.mesh:
-        # multi-host init must precede ANY JAX computation (including the
-        # device-side synthetic catalog); no-op in a single process
+        # multi-process init must precede ANY JAX computation (including
+        # the device-side synthetic catalog); no-op in a single process
         from carca_tpu.parallel.mesh import initialize_distributed
         initialize_distributed()
     catalog = load_catalog(args)

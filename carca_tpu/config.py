@@ -51,19 +51,12 @@ class ModelConfig:
     residual_ca: bool = True
     gamma: float = 0.9  # WeightedDotProduct decay (src/carca.py:373)
     l2_norm: bool = False  # WeightedDotProduct cosine mode (src/carca.py:381-391)
-    # --- TPU-native knobs (no reference counterpart) ---
-    compute_dtype: str = "float32"  # "bfloat16" for MXU-friendly matmuls
-    # Attention kernel selection: True = fused Pallas kernels, False = jnp
-    # (XLA-fused) path, "auto" = per-callsite by score-tile size — measured
-    # on v5e, XLA's fusion of the L×L softmax wins below ~200×200 tiles
-    # (the whole tile fits VMEM either way and the Pallas launch + head
-    # split overhead dominates); the fused kernel wins at long sequences.
-    use_pallas: Any = "auto"
+    # --- execution knobs (no reference counterpart) ---
+    compute_dtype: str = "float32"  # "bfloat16" for tensor-core matmuls
     remat: bool = False  # jax.checkpoint the encoder stack (HBM for FLOPs)
     # Lane-pack sub-128-wide embedding tables ([n, d] → [⌈n/p⌉, p·d],
-    # p = 128/d) so big tables (and their Adam moments) don't pay the
-    # (8, 128) tile padding: True | False | "auto" (pack only ≥1M-row
-    # tables). See ops/packed_table.py.
+    # p = 128/d): True | False | "auto" (never packs: the GPU stores
+    # narrow rows densely). See ops/packed_table.py.
     pack_tables: Any = "auto"
 
     def __post_init__(self) -> None:
@@ -75,9 +68,6 @@ class ModelConfig:
             raise ValueError(f"unknown decoder {self.decoder!r}; want one of {DECODERS}")
         if self.d % self.n_heads != 0:
             raise ValueError("d must be divisible by n_heads (src/carca.py:208)")
-        if self.use_pallas not in (True, False, "auto"):
-            raise ValueError(
-                f"use_pallas must be True, False, or 'auto'; got {self.use_pallas!r}")
         if self.pack_tables not in (True, False, "auto"):
             raise ValueError(
                 f"pack_tables must be True, False, or 'auto'; got {self.pack_tables!r}")
@@ -272,9 +262,9 @@ def preset(name: str, n_items: int = 0, n_attrs: int = 0, n_ctx: int = 0) -> Con
                          embedding="all", decoder="ca")
         return Config(model=m)
     if name == "synthetic10m":  # configs[4]: sharded tables, full-catalog scoring
-        # d=64 is the single-chip-feasible shape: the 10M-row table + its
-        # Adam moments are 3 x 2.56 GB in f32, ~10 GB/step with attrs and
-        # activations (v5e has 16 GB HBM; d=128 needs ~20 GB → pod-only)
+        # d=64: the 10M-row table + its Adam moments are 3 x 2.56 GB in
+        # f32, ~10 GB with attrs and activations — one card's memory holds
+        # it with room to spare
         m = _beauty_like(n_items or 10_000_001, n_attrs or 64, n_ctx or 8,
                          d=64, n_blocks=2, seq_len=50, embedding="all",
                          decoder="dot", compute_dtype="bfloat16")
@@ -318,8 +308,8 @@ def parse_bool(s: Any) -> bool:
     raise ValueError(f"cannot parse boolean from {s!r}")
 
 
-def parse_pallas_flag(s: Any) -> Any:
-    """Parse a ``use_pallas`` value: strict boolean or the string "auto"."""
+def parse_tristate(s: Any) -> Any:
+    """Parse a tri-state flag: strict boolean or the string "auto"."""
     if str(s).strip().lower() == "auto":
         return "auto"
     return parse_bool(s)

@@ -91,12 +91,12 @@ def synthetic_catalog_device(
     context in host RAM and ships them to HBM — for the 10M-item preset
     that is ~0.5–2.6 GB of host→device traffic before the first step.
     Here only the ``[n_users+1]`` CSR offsets cross the boundary; attrs,
-    items, and contexts are generated directly in HBM. The PRNG impl is
-    pinned to threefry2x32 — stable across backends and XLA versions — so
-    a catalog generated during TPU training is regenerated bit-identically
-    by carca-serve or a resumed run on any backend (the package default is
-    the faster hardware ``rbg`` impl, whose stream is backend-dependent;
-    fine for dropout, wrong for data). Item popularity uses the continuous Zipf(1) inverse CDF
+    items, and contexts are generated directly in device memory. The PRNG
+    impl is pinned to threefry2x32 — stable across backends and XLA
+    versions — so a catalog generated during training is regenerated
+    bit-identically by carca-serve or a resumed run on any backend, even
+    when ``CARCA_PRNG_IMPL`` picks a backend-dependent generator (fine for
+    dropout, wrong for data). Item popularity uses the continuous Zipf(1) inverse CDF
     (``exp(u·ln n)``) rather than numpy's exact discrete draw — the same
     1/rank shape, different PRNG stream, so the numpy generator remains
     the deterministic golden source for tests.

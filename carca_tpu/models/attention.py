@@ -16,9 +16,8 @@ Behavioral contract (``src/carca.py:204-265``):
   (softmax → uniform) are zeroed, so padded queries emit exactly 0.
 * Dropout applied **to the attention weights** (``:258``), then ⊙ V.
 
-The jnp path below is the correctness oracle; ``use_pallas=True`` routes to
-the fused Pallas TPU kernel in ``carca_tpu.ops.flash_attention`` (same
-contract, no L×L materialization in HBM).
+Plain jnp, left to XLA: at CARCA's lengths (L ≤ 200, head dim 32) the
+``[B, H, Lq, Lk]`` logits are small enough for XLA's fused softmax.
 """
 
 from __future__ import annotations
@@ -33,23 +32,6 @@ from carca_tpu.models import layers
 Params = Dict[str, jnp.ndarray]
 
 NEG_MASK = -(2.0**32) + 1.0  # src/carca.py:251
-
-# "auto" kernel selection: the fused Pallas kernel pays a fixed launch +
-# head-split/pad cost per call; measured on v5e, XLA's fusion of the jnp
-# path wins until the score tile reaches ~200×200 (both fit VMEM — the
-# kernel's advantage is avoiding the [B,H,Lq,Lk] HBM round-trip, which XLA
-# also avoids at small L by fusing). Crossover measured with the full train
-# step: L=50 → jnp 2.5 ms vs pallas 3.9 ms; L=200 → pallas 6.3 vs jnp 6.6.
-_AUTO_FUSED_MIN_TILE = 200 * 200
-
-
-def use_fused_attention(flag, lq: int, lk: int) -> bool:
-    """Resolve a ModelConfig.use_pallas flag (True | False | "auto") for one
-    attention callsite with static query/key lengths."""
-    if flag == "auto":
-        return (jax.default_backend() == "tpu"
-                and lq * lk >= _AUTO_FUSED_MIN_TILE)
-    return bool(flag)
 
 
 def mha_init(key: jax.Array, d: int) -> Params:
@@ -69,25 +51,6 @@ def _split_heads(x: jnp.ndarray, n_heads: int) -> jnp.ndarray:
 def _merge_heads(x: jnp.ndarray) -> jnp.ndarray:
     b, h, l, dh = x.shape
     return x.transpose(0, 2, 1, 3).reshape(b, l, h * dh)
-
-
-# Head-layout formulation of the jnp path — same math, different HLO.
-# Round-4 profiling attributed ~15% of flagship device time to layout-
-# repair copies around the [B,H,L,dh] transposes; round 5 A/Bed three
-# formulations end-to-end (scripts/ab_attention_layout.py, full flagship
-# train step, median of 5 windows):
-#   "bhqk"   — split+transpose to [B,H,L,dh], 4D batched einsums (round-4
-#              shipping form)
-#   "blhd"   — reshape only, contraction on [B,L,H,dh] directly (no
-#              transpose in the source; XLA still picks operand layouts)
-#   "hb_fold"— heads stacked along batch [H·B, L, dh], 3D bmms (the
-#              reference's own trick, src/carca.py:242-244)
-# Numbers + the shipped default are recorded in docs/DESIGN.md §13
-# (round-5 addendum). NOTE the dropout mask SHAPE differs per
-# formulation ([B,H,Lq,Lk] vs [H·B,Lq,Lk]) — masks stay iid Bernoulli so
-# training semantics are identical, but per-bit reproducibility across
-# formulations is not a contract (only within one).
-_FORMULATION = "bhqk"
 
 
 def pair_mask(
@@ -124,10 +87,7 @@ def masked_attention(
     compute_dtype=jnp.float32,
     return_w: bool = False,
 ):
-    """THE reference attention math on post-projection tensors — the single
-    jnp implementation, used by ``mha_apply`` and as the fused kernel's
-    fallback (``ops/flash_attention._jnp_fallback``). Keeping one copy makes
-    "fallback ≡ oracle" structural rather than copy-maintained."""
+    """THE reference attention math on post-projection tensors."""
     cd = jnp.dtype(compute_dtype)
     h = n_heads
     b, lq, d = q.shape
@@ -136,51 +96,6 @@ def masked_attention(
 
     m = pair_mask(q_mask, k_mask, causal)  # [B, Lq, Lk]
     add = jnp.where(m > 0, 0.0, NEG_MASK).astype(jnp.float32)
-
-    if _FORMULATION == "hb_fold":
-        # heads stacked along batch (src/carca.py:242-244's own layout):
-        # chunk the feature dim, concat head-major along batch → 3D bmms
-        def fold(x):
-            return (x.astype(cd).reshape(b, -1, h, dh)
-                    .transpose(2, 0, 1, 3).reshape(h * b, -1, dh))
-        q3, k3, v3 = fold(q), fold(k), fold(v)
-        # logits in fp32: (QKᵀ + add) / √(d/H) — mask added pre-scale, as
-        # in baddbmm at src/carca.py:253-254
-        logits = jnp.einsum("xqe,xke->xqk", q3, k3,
-                            preferred_element_type=jnp.float32)
-        add3 = jnp.broadcast_to(add[None], (h, b, lq, lk)).reshape(
-            h * b, lq, lk)
-        m3 = jnp.broadcast_to(m[None], (h, b, lq, lk)).reshape(
-            h * b, lq, lk)
-        logits = (logits + add3) / scale
-        w = jax.nn.softmax(logits, axis=-1)
-        w = w * m3  # post-softmax re-mask (src/carca.py:256)
-        wd = layers.dropout(rng, w, dropout_rate, train)  # on weights (:258)
-        out = jnp.einsum("xqk,xke->xqe", wd.astype(cd), v3,
-                         preferred_element_type=jnp.float32)
-        out = (out.reshape(h, b, lq, dh).transpose(1, 2, 0, 3)
-               .reshape(b, lq, d).astype(jnp.float32))
-        if return_w:
-            return w.reshape(h, b, lq, lk).transpose(1, 0, 2, 3), out
-        return out
-
-    if _FORMULATION == "blhd":
-        # reshape-only: contract per-head directly on [B, L, H, dh]
-        q4 = q.astype(cd).reshape(b, lq, h, dh)
-        k4 = k.astype(cd).reshape(b, lk, h, dh)
-        v4 = v.astype(cd).reshape(b, lk, h, dh)
-        logits = jnp.einsum("bqhe,bkhe->bhqk", q4, k4,
-                            preferred_element_type=jnp.float32)
-        logits = (logits + add[:, None]) / scale
-        w = jax.nn.softmax(logits, axis=-1)
-        w = w * m[:, None]  # post-softmax re-mask (src/carca.py:256)
-        wd = layers.dropout(rng, w, dropout_rate, train)  # on weights (:258)
-        out = jnp.einsum("bhqk,bkhe->bqhe", wd.astype(cd), v4,
-                         preferred_element_type=jnp.float32)
-        out = out.reshape(b, lq, d).astype(jnp.float32)
-        if return_w:
-            return w, out
-        return out
 
     qh = _split_heads(q.astype(cd), n_heads)
     kh = _split_heads(k.astype(cd), n_heads)
@@ -216,14 +131,11 @@ def mha_apply(
     train: bool,
     rng: Optional[jax.Array],
     compute_dtype=jnp.float32,
-    use_pallas=False,
     return_w: bool = False,
 ):
     """query [B,Lq,d], key/value [B,Lk,d], masks [B,Lq]/[B,Lk] → [B,Lq,d]."""
     cd = jnp.dtype(compute_dtype)
     if train and dropout_rate > 0.0 and rng is None:
-        # fail identically on both dispatch paths (the kernel would
-        # otherwise silently train without attention dropout)
         raise ValueError("dropout requires an rng key when train=True and rate>0")
     q = layers.dense(params["wq"], query, cd)
     k = layers.dense(params["wk"], key, cd)
@@ -232,20 +144,10 @@ def mha_apply(
     d = q.shape[-1]
     scale = (d / n_heads) ** 0.5
 
-    fused = use_fused_attention(use_pallas, query.shape[1], key.shape[1])
-    if fused and not return_w:
-        from carca_tpu.ops.flash_attention import fused_attention
-
-        out = fused_attention(
-            q, k, v, q_mask, k_mask,
-            causal=causal, scale=scale,
-            dropout_rate=dropout_rate if train else 0.0,
-            rng=rng if train and dropout_rate > 0 else None,
-            n_heads=n_heads, compute_dtype=str(cd),
-        )
-        return out.astype(jnp.float32)
-
-    return masked_attention(
-        q, k, v, q_mask, k_mask, n_heads=n_heads, causal=causal, scale=scale,
-        dropout_rate=dropout_rate, train=train, rng=rng, compute_dtype=cd,
-        return_w=return_w)
+    # a stable name for the profiler: scripts/profile_step.py attributes
+    # device time to the [B, H, Lq, Lk] part of the step by this scope
+    with jax.named_scope("attention"):
+        return masked_attention(
+            q, k, v, q_mask, k_mask, n_heads=n_heads, causal=causal,
+            scale=scale, dropout_rate=dropout_rate, train=train, rng=rng,
+            compute_dtype=cd, return_w=return_w)

@@ -74,7 +74,7 @@ def decoder_apply(
             params["attn"], o, p, p, q_mask=o_mask, k_mask=p_mask,
             n_heads=cfg.n_heads, causal=causal, dropout_rate=cfg.dropout,
             train=train, rng=rng,
-            compute_dtype=cfg.compute_dtype, use_pallas=cfg.use_pallas,
+            compute_dtype=cfg.compute_dtype,
         )
         if cfg.residual_ca:
             s = s + o

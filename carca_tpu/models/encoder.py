@@ -56,7 +56,7 @@ def encoder_block_apply(
         params["attn"], q, x, x, q_mask=mask, k_mask=mask,
         n_heads=cfg.n_heads, causal=0, dropout_rate=cfg.dropout,
         train=train, rng=r_attn,
-        compute_dtype=cfg.compute_dtype, use_pallas=cfg.use_pallas,
+        compute_dtype=cfg.compute_dtype,
     )
     if cfg.residual_sa:
         s = s + q  # residual onto the normed query (src/carca.py:301-302)

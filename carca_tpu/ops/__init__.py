@@ -1,21 +1,12 @@
-"""Pallas TPU kernels for the hot compute paths.
+"""Kernels and table layouts for the hot paths.
 
-The two attention patterns identified in SURVEY.md §3.3 (reference hot spots
-at ``src/carca.py:246-259`` and ``:424-429``) are implemented as fused TPU
-kernels:
-
-* :mod:`carca_tpu.ops.flash_attention` — fused masked multi-head attention
-  (mask construction + additive-mask logits + softmax + post-softmax re-mask
-  + weight dropout + PV matmul in one VMEM-resident kernel; no ``[B,H,L,L]``
-  HBM materialization), with a custom VJP whose backward is also a single
-  fused kernel.
-
-Each kernel has the pure-jnp implementation in
-``carca_tpu.models.attention`` as its correctness oracle; tests compare the
-two paths bit-for-bit-ish (fp32 tolerance) on CPU via interpret mode.
+* :mod:`carca_tpu.ops.retrieval_topk` — exact full-catalog top-k by a
+  group-max tournament whose catalog pass is a Pallas kernel (Triton route
+  on the GPU, interpret mode on the CPU), with ``groupmax_plain`` as its
+  plain-jnp reference.
+* :mod:`carca_tpu.ops.packed_table` — lane-packed embedding tables.
 """
 
-from carca_tpu.ops.flash_attention import fused_attention  # noqa: F401
 from carca_tpu.ops.retrieval_topk import (  # noqa: F401
     QuantizedIndex,
     catalog_topk,

@@ -1,23 +1,20 @@
 """Lane-packed embedding tables.
 
-TPU arrays are tiled (8, 128): a table whose row width is below 128 lanes
-is stored physically padded to 128, so a ``[10M, 64]`` f32 item table costs
-4.8 GB of HBM instead of 2.4 GB — and its two Adam moments triple that
-waste. Since the gather hardware reads whole padded rows either way, the
-fix is free: store ``p = 128 // d`` logical rows per physical row,
+A packed table stores ``p = 128 // d`` logical rows per physical row,
 
     packed[r] = concat(table[r*p], ..., table[r*p + p - 1])   # [⌈n/p⌉, p·d]
 
 i.e. exactly ``table.reshape(⌈n/p⌉, p·d)`` after padding ``n`` up to a
 multiple of ``p``. Lookup gathers the physical row then selects the d-wide
-slice; autodiff turns that into a scatter-add over the packed rows — same
-bytes as the padded scatter, half the storage. Unpacking is a reshape.
+slice; autodiff turns that into a scatter-add over the packed rows.
+Unpacking is a reshape.
 
-The reference has no notion of this (a CUDA ``nn.Embedding`` row is not
-tile-padded, ``src/carca.py:73``); it exists purely because of the TPU
-memory layout, and it is what makes the 10M-item single-chip configuration
-(BASELINE configs[4]) fit in a v5e's 16 GB HBM: items + 2 Adam moments +
-attrs drop from ~19 GB padded to ~9.5 GB.
+Packing exists for memory layouts that pad every row to 128 lanes (the
+layout the system was first built for): there it halves a ``[n, 64]``
+table's footprint and that of its Adam moments. The GPU stores a
+``[n, 64]`` table densely, so packing saves nothing there; ``"auto"``
+therefore never packs, and ``True`` packs on request (a packed-versus-plain
+measurement on the GPU is an open ROADMAP item).
 """
 
 from __future__ import annotations
@@ -31,13 +28,11 @@ LANES = 128
 def pack_factor(width: int, n_rows: int = 0, flag="auto") -> int:
     """Physical rows-per-row for a [n_rows, width] table.
 
-    ``flag``: True → pack whenever the width divides the lane tile;
-    False → never; "auto" → pack only big tables (≥ 1M rows), where the
-    saving matters and checkpoint-layout churn is justified.
+    ``flag``: True → pack whenever the width divides the 128-lane row;
+    False or "auto" → never (dense layouts gain nothing, module docstring).
+    ``n_rows`` is accepted for call-site symmetry.
     """
-    if flag is False or width >= LANES or LANES % width:
-        return 1
-    if flag == "auto" and n_rows < 1_000_000:
+    if flag is not True or width >= LANES or LANES % width:
         return 1
     return LANES // width
 

@@ -4,49 +4,46 @@ The framework uses one global mesh with a ``data`` axis (batch / DP) and an
 optional ``model`` axis (row-sharded embedding tables). All sharding is
 expressed as ``NamedSharding`` over this mesh; XLA SPMD inserts the
 collectives (gradient ``psum`` over ``data``, lookup ``psum`` over
-``model``) on ICI. There is no hand-written transport layer — that is the
-TPU-native replacement for the NCCL/MPI stacks the reference lacks
-(SURVEY.md §2.3).
+``model``), which run over NVLink through NCCL. There is no hand-written
+transport layer (the reference has none, SURVEY.md §2.3). Every card of a
+host reaches every other at the same rate, so the mesh shape follows the
+algorithm alone.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
-def initialize_distributed(**kw) -> None:
-    """Multi-host init (no-op when single-process). Call once before any
-    JAX computation on a pod slice; coordinator/process env comes from the
-    TPU runtime.
+_DISTRIBUTED_ENV = {"coordinator_address": "JAX_COORDINATOR_ADDRESS",
+                    "num_processes": "JAX_NUM_PROCESSES",
+                    "process_id": "JAX_PROCESS_ID"}
 
-    Only the benign cases are swallowed (already initialized; no
-    coordinator configured = single process). A genuine multi-host init
-    failure must raise — otherwise every host silently trains the full
-    workload independently and races on the checkpoint directory."""
-    try:
+
+def initialize_distributed(**kw) -> None:
+    """Multi-process init; a no-op for a single process. Call once before
+    any JAX computation.
+
+    A multi-process run names its cluster explicitly — keyword arguments,
+    or ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+    ``JAX_PROCESS_ID`` (e.g. ``localhost:<port>``, 2, 0). With neither,
+    the process runs alone and nothing is initialized (no coordinator to
+    wait for, so nothing can hang). With either, any init failure raises
+    — otherwise every process would silently train the full workload on
+    its own and race on the checkpoint directory."""
+    if jax.distributed.is_initialized():
+        return
+    for name, var in _DISTRIBUTED_ENV.items():
+        if name not in kw and os.environ.get(var):
+            value = os.environ[var]
+            kw[name] = value if name == "coordinator_address" else int(value)
+    if kw:
         jax.distributed.initialize(**kw)
-    except RuntimeError as e:
-        msg = str(e).lower()
-        if "already" in msg:
-            return  # initialized earlier — benign
-        if "before any jax calls" in msg:
-            # the backend is already up (e.g. a PJRT plugin initialized it
-            # at import) — on a real pod each process must call this before
-            # touching JAX, but a single-process run is fine to continue
-            import sys
-            sys.stderr.write(
-                "initialize_distributed: XLA backend already initialized; "
-                "continuing single-process (on a pod, call this before any "
-                "JAX usage)\n")
-            return
-        raise
-    except ValueError:
-        pass  # no coordinator/process env → single-process run
 
 
 def make_mesh(
@@ -55,20 +52,14 @@ def make_mesh(
     devices: Optional[Sequence[jax.Device]] = None,
 ) -> Mesh:
     """Build the global mesh. ``shape=()`` → all devices on the first axis.
-
-    ``mesh_utils.create_device_mesh`` lays logical axes onto the physical
-    ICI topology so the innermost axis gets the fastest links.
-    """
+    Devices are laid out in order: the cards of a host are joined all to
+    all, so no placement is better than another."""
     devices = list(devices if devices is not None else jax.devices())
     if not shape:
         shape = (len(devices),) + (1,) * (len(axes) - 1)
     if int(np.prod(shape)) != len(devices):
         raise ValueError(f"mesh shape {shape} != {len(devices)} devices")
-    try:
-        dmesh = mesh_utils.create_device_mesh(shape, devices=devices)
-    except (ValueError, AssertionError):  # virtual/CPU devices: plain reshape
-        dmesh = np.asarray(devices).reshape(shape)
-    return Mesh(dmesh, axes)
+    return Mesh(np.asarray(devices).reshape(shape), axes)
 
 
 def _is_table_path(path) -> bool:

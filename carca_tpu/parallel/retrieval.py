@@ -2,18 +2,18 @@
 
 BASELINE.json configs[4]: rank the **entire catalog** (10M items) per query
 instead of 1+100 sampled candidates. The reference has no such path (its
-eval is sampled-negatives only, ``src/data.py:140-192``); this is the
-TPU-native retrieval design:
+eval is sampled-negatives only, ``src/data.py:140-192``); the design:
 
 * the catalog is embedded **once per evaluation** (not per user) with the
   item tower — exact for attr/id/mlpid embeddings; for ctx-fusing
   embeddings (all/attrctx) a query-independent context (zeros by default)
   is used, the standard two-tower retrieval approximation;
 * item/attr tables stay row-sharded over the ``model`` axis: each chip
-  embeds its rows, scores them against its data-shard of query states with
-  one MXU matmul, takes a **local** top-k, and only the ``[shards, k]``
-  candidates are all-gathered and re-reduced — the ``[B, n_items]`` score
-  matrix never exists in HBM and never crosses ICI;
+  embeds its rows, scores them against its data-shard of query states
+  (the tournament kernel, ``ops/retrieval_topk.py``), takes a **local**
+  top-k, and only the ``[shards, k]`` candidates are all-gathered and
+  re-reduced — the ``[B, n_items]`` score matrix never exists in device
+  memory and never crosses the interconnect;
 * retrieval applies to the dot-family decoders (two-tower geometry: score =
   last profile state · item embedding, ``src/carca.py:362``); the
   cross-attention decoder is a *ranking* model — O(L) attention per
@@ -165,7 +165,6 @@ def topk_given_queries(
     use_kernel: bool = True,
     in_decoder_space: bool = False,
     row_ids: Optional[jnp.ndarray] = None,
-    method: str = "auto",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Single-device top-k of precomputed queries [B, d] against precomputed
     catalog embeddings [R, d] (rows aligned with item ids; pad rows beyond
@@ -183,7 +182,10 @@ def topk_given_queries(
 
     ``e`` may be a ``QuantizedIndex`` (int8 rows + per-row scales —
     ops/retrieval_topk.quantize_index); it must then already be in
-    decoder space (the scales bake the row geometry in)."""
+    decoder space (the scales bake the row geometry in).
+
+    ``use_kernel=False`` is the plain XLA reference: it writes the whole
+    ``[B, R]`` score matrix (and dequantizes an int8 index whole)."""
     from carca_tpu.ops.retrieval_topk import QuantizedIndex, dequantize_index
 
     quantized = isinstance(e, QuantizedIndex)
@@ -204,7 +206,7 @@ def topk_given_queries(
     if use_kernel:
         kk = min(k + (exclude.shape[1] if exclude is not None else 0), rows)
         from carca_tpu.ops.retrieval_topk import catalog_topk
-        v, rid = catalog_topk(q, e, kk, n_items=n_local, method=method)
+        v, rid = catalog_topk(q, e, kk, n_items=n_local)
         if row_ids is not None:
             rid = row_ids[rid]
         if exclude is None:  # then kk == k — nothing to re-rank
@@ -232,7 +234,6 @@ def full_catalog_topk(
     exclude: Optional[jnp.ndarray] = None,
     catalog_emb: Optional[jnp.ndarray] = None,
     use_kernel: bool = True,
-    method: str = "auto",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Top-k items over the whole catalog: (scores [B,k], item ids [B,k]).
 
@@ -244,11 +245,11 @@ def full_catalog_topk(
     sharded path embeds shard-locally, which is already once per call per
     1/N of the catalog). With a ``mesh`` carrying a ``model`` axis of
     size > 1, the item/attr tables must be row-sharded
-    (``pad_table_rows``); queries ride the ``data`` axis; ICI traffic is
-    O(shards · k) per query. ``use_kernel`` routes the score+top-k through
-    the fused Pallas streaming kernel (``ops/retrieval_topk.py``) — the
-    [B, n_items] score matrix never touches HBM; exclusions are handled by
-    over-retrieving k+E winners and filtering.
+    (``pad_table_rows``); queries ride the ``data`` axis; interconnect
+    traffic is O(shards · k) per query. ``use_kernel`` routes the
+    score+top-k through the tournament kernel (``ops/retrieval_topk.py``)
+    — the [B, n_items] score matrix never reaches device memory;
+    exclusions are handled by over-retrieving k+E winners and filtering.
     """
     q = queries(params, cfg, profile, attrs_table)
     had_exclude = exclude is not None
@@ -268,7 +269,7 @@ def full_catalog_topk(
             global_ids=jnp.arange(attrs_table.shape[0], dtype=jnp.int32))
         return topk_given_queries(
             q, e, cfg, k, exclude=exclude if had_exclude else None,
-            use_kernel=use_kernel, method=method,
+            use_kernel=use_kernel,
             # a quantized index is decoder-space by construction
             in_decoder_space=isinstance(e, QuantizedIndex))
 
@@ -299,8 +300,9 @@ def full_catalog_topk(
             table_rows=items_shard if has_items else None, global_ids=gids), cfg)
         if use_kernel:
             from carca_tpu.ops.retrieval_topk import catalog_topk
-            v, cand_ids = catalog_topk(q, e, kk, n_items=cfg.n_items,
-                                       id_offset=lo, method=method)
+            # a shard holds at most `rows` winners: clamping is exact
+            v, cand_ids = catalog_topk(q, e, min(kk, rows),
+                                       n_items=cfg.n_items, id_offset=lo)
         else:
             mask_ids = jnp.where(gids < cfg.n_items, gids, 0)  # pad rows → 0
             s = _masked_scores(q, e, mask_ids, exclude)
@@ -339,20 +341,19 @@ def topk_given_queries_sharded(
     exclude: Optional[jnp.ndarray] = None,
     row_ids: Optional[jnp.ndarray] = None,
     use_kernel: bool = True,
-    method: str = "auto",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """`topk_given_queries` over a PRECOMPUTED index row-sharded on the
     ``model`` mesh axis — the serving counterpart of ``full_catalog_topk``'s
     sharded branch (which re-embeds the catalog per call; a serving index
     is embedded once at load time and must stay resident, sharded, in each
-    chip's HBM — a 100M-row d=64 int8 index is 6.4 GB, beyond one chip).
+    card's memory — e.g. a 100M-row d=64 index that outgrows one card).
 
     ``e``: [R_pad, d] embeddings or a ``QuantizedIndex``, both already in
     decoder space, with R_pad a multiple of the ``model`` axis size (pad
     rows carry id ≥ cfg.n_items or map to row_ids' pad entries). Queries
     are replicated to every model shard (serving batches are small; the
     index is what's big); each shard streams only its rows and only
-    [shards, k+E] candidates cross ICI. ``row_ids`` maps compacted index
+    [shards, k+E] candidates cross the interconnect. ``row_ids`` maps compacted index
     rows to global item ids (row 0 = pad, as in ``topk_given_queries``);
     its length is the TRUE index row count — sharding-pad rows beyond it
     are masked by global row index, like the kernel's own pad rows.
@@ -386,7 +387,7 @@ def topk_given_queries_sharded(
         if use_kernel:
             from carca_tpu.ops.retrieval_topk import catalog_topk
             v, rid = catalog_topk(q, eloc, kk_local, n_items=n_local,
-                                  id_offset=lo, method=method)
+                                  id_offset=lo)
         else:
             from carca_tpu.ops.retrieval_topk import dequantize_index
             ef = (dequantize_index(eloc) if scales_shard is not None

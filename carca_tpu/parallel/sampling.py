@@ -116,10 +116,8 @@ def _first_distinct_excluding(draws: jnp.ndarray, window: jnp.ndarray,
     # window flag into the LSB of its position and propagate it with ONE
     # cummax — positions increase, so each run's head dominates. The
     # obvious alternative (cummax head positions, then gather the head's
-    # tag with take_along_axis) costs ~310 µs/step fused into the scanned
-    # train step — TPU gathers serialize per element — a measured 14%
-    # flagship throughput regression (round-2 commit 87a5dbd, bisected
-    # and fixed round 3); the LSB pack is pure vector ops
+    # tag with take_along_axis) adds a per-element gather to the scanned
+    # train step; the LSB pack is pure vector ops
     pos2 = jnp.broadcast_to(jnp.arange(w + o, dtype=jnp.int32), sv.shape)
     enc = jnp.where(~prev_eq, pos2 * 2 + (st == 0), -1)
     head_win = (jax.lax.cummax(enc, axis=1) & 1) == 1
@@ -198,8 +196,7 @@ def device_sample_negatives(
         draws = jax.random.randint(
             rng, (b, n_slots, retries), 1, n_items, dtype=profile.dtype)
     # collision of each draw against the window: [B, S, R] via all-pairs
-    # compare (vectorized compare beats a [B, n_items] scatter/gather bitmap
-    # on TPU — measured 0.6 vs 1.9 ms/step at B=256, S=50, R=8, L=51)
+    # compare — vector work instead of a [B, n_items] scatter/gather bitmap
     hit = jnp.any(draws[:, :, :, None] == profile[:, None, None, :], axis=-1)
     # first non-colliding draw; fall back to the last draw if all collide
     first_ok = jnp.argmax(~hit, axis=-1)  # 0 if none ok → but then use last

@@ -3,12 +3,12 @@
 The reference stops at offline evaluation (``src/train.py:35-53`` scores
 1+100 *sampled* candidates); serving needs the opposite shape of problem —
 rank the **whole catalog** for a handful of users at low latency. The
-TPU-native design:
+design:
 
 * **Stage 1 — retrieval.** The catalog is embedded once at load time with
-  the item tower (``parallel/retrieval.embed_catalog``) and kept in HBM.
-  Per request, the profile tower encodes the user history, and the fused
-  streaming top-k kernel (``ops/retrieval_topk``) scans the catalog
+  the item tower (``parallel/retrieval.embed_catalog``) and kept in device
+  memory. Per request, the profile tower encodes the user history, and
+  the tournament top-k kernel (``ops/retrieval_topk``) scans the catalog
   embeddings against the last profile state — the ``[B, n_items]`` score
   matrix never exists. The user's own history is excluded (over-retrieve
   k+L, filter, re-top-k).
@@ -115,11 +115,15 @@ class Recommender:
         actually dominates.
     mesh:
         Optional ``Mesh`` with a ``model`` axis: the stage-1 index is
-        row-sharded across it (each chip holds and streams 1/N of the
-        rows; only [shards, k+E] candidates cross ICI per request —
-        ``parallel.retrieval.topk_given_queries_sharded``). This is how
-        an index beyond one chip's HBM serves (e.g. 100M rows); params
-        and the attrs catalog stay replicated.
+        row-sharded across it (each card holds and streams 1/N of the
+        rows; only [shards, k+E] candidates cross the interconnect per
+        request — ``parallel.retrieval.topk_given_queries_sharded``).
+        This is how an index beyond one card's memory serves (e.g. 100M
+        rows); params and the attrs catalog stay replicated.
+    use_kernel:
+        Stage 1 through the tournament kernel (default). ``False`` runs
+        the plain XLA reference instead, which writes the whole
+        ``[B, index rows]`` score matrix — for checking, not serving.
     """
 
     def __init__(
@@ -135,8 +139,10 @@ class Recommender:
         index_ids: Optional[np.ndarray] = None,
         quantize=False,
         mesh=None,
+        use_kernel: bool = True,
     ):
         self.cfg = cfg
+        self.use_kernel = use_kernel
         self.exclude_history = exclude_history
         self.batch_buckets = tuple(sorted(batch_buckets))
         if mesh is not None:
@@ -244,6 +250,7 @@ class Recommender:
         exclude = self.exclude_history
         row_ids = self.row_ids
         mesh = self.mesh
+        use_kernel = self.use_kernel
 
         @jax.jit
         def fn(params, attrs, catalog_emb, p_x, p_c, req_ctx):
@@ -256,12 +263,13 @@ class Recommender:
                     topk_given_queries_sharded
                 sv, sids = topk_given_queries_sharded(
                     q, catalog_emb, cfg, n1, mesh,
-                    exclude=p_x if exclude else None, row_ids=row_ids)
+                    exclude=p_x if exclude else None, row_ids=row_ids,
+                    use_kernel=use_kernel)
             else:
                 sv, sids = topk_given_queries(
                     q, catalog_emb, cfg, n1,
                     exclude=p_x if exclude else None, in_decoder_space=True,
-                    row_ids=row_ids)
+                    row_ids=row_ids, use_kernel=use_kernel)
             if not rerank:
                 # keep pad/exhausted slots at -inf (sigmoid would fold them
                 # to 0.0, indistinguishable from a real low score)
@@ -378,7 +386,8 @@ class Recommender:
 
 def config_from_run_dir(run_dir: str) -> Config:
     """Rebuild the training Config from a run directory's ``args.json``
-    (the flat dump written by ``train/loop.fit``)."""
+    (the flat dump written by ``train/loop.fit``). Keys that are no longer
+    config fields (e.g. ``use_pallas`` in older runs) are ignored."""
     with open(os.path.join(run_dir, "args.json")) as fh:
         flat = json.load(fh)
     import dataclasses

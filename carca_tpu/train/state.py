@@ -8,23 +8,27 @@ checkpointable and restorable mid-run (SURVEY.md §5 checkpoint/resume).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax.struct import dataclass as pytree_dataclass
 
 from carca_tpu.config import ModelConfig, TrainConfig
 from carca_tpu.models.carca import carca_init
 
 
-@pytree_dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class TrainState:
     params: Dict[str, Any]
     opt_state: Any
     rng: jax.Array
     step: jnp.ndarray  # scalar int32
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
 
 def decay_mask(params):

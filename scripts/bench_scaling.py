@@ -1,4 +1,4 @@
-"""DP weak-scaling harness: examples/sec/chip at mesh sizes 1..N.
+"""DP weak-scaling harness: examples/sec/card at mesh sizes 1..N.
 
 The north star asks for ≥85% examples/s scaling efficiency from 1 host to
 N≥2 hosts. This is the tool that measures it: per mesh size, the global
@@ -6,13 +6,13 @@ batch grows linearly (weak scaling — per-chip work constant) through the
 same `make_sharded_train_step` the trainer uses, and efficiency is
 per-chip throughput relative to the single-device run.
 
-On a real pod slice, run it as-is (one process per host via the TPU
-runtime; `initialize_distributed` handles multi-host init). On this dev box
-there is one TPU chip, so `--platform cpu` (the default) demonstrates the
-harness on N *virtual* CPU devices instead — those numbers validate the
-mechanics (collectives inserted, per-device work constant), NOT hardware
-scaling: the virtual devices share one host's cores, so ideal efficiency
-is ~1/N, not 1.
+`--platform native` runs each size on the cards JAX exposes (one child
+process per size, one at a time; the parent stays off JAX so only one
+process holds the cards). `--platform cpu` (the default) runs the harness
+on N *virtual* CPU devices instead — those numbers validate the mechanics
+(collectives inserted, per-device work constant), NOT hardware scaling:
+the virtual devices share one host's cores, so ideal efficiency is ~1/N,
+not 1.
 
     python scripts/bench_scaling.py --sizes 1,2,4,8 [--shard_embeddings]
 """
@@ -42,7 +42,6 @@ def run_one(n_devices: int, args) -> dict:
     from carca_tpu.data.synthetic import synthetic_catalog
     from carca_tpu.parallel import make_mesh, make_sharded_train_step
     from carca_tpu.train.state import create_train_state, make_optimizer
-    from carca_tpu.utils.timing import sync
 
     model_par = 2 if (args.shard_embeddings and n_devices % 2 == 0) else 1
     if model_par > 1:
@@ -55,7 +54,7 @@ def run_one(n_devices: int, args) -> dict:
     mc = ModelConfig(n_items=cat.n_items, n_attrs=cat.n_attrs,
                      n_ctx=cat.n_ctx, d=64, g=256, seq_len=50,
                      target_len=100, n_blocks=2, n_heads=2, dropout=0.5,
-                     embedding="all", decoder="ca", use_pallas=False)
+                     embedding="all", decoder="ca")
     data_axis = n_devices // model_par
     global_batch = args.per_chip_batch * data_axis
     tc = TrainConfig(batch_size=global_batch, seed=0)
@@ -80,11 +79,11 @@ def run_one(n_devices: int, args) -> dict:
                                    shard_embeddings=model_par > 1)
     for _ in range(2):
         state, loss = step(state, attrs, batch)
-    sync(loss)
+    jax.block_until_ready(loss)
     t0 = time.perf_counter()
     for _ in range(args.steps):
         state, loss = step(state, attrs, batch)
-    sync(loss)
+    jax.block_until_ready(loss)
     dt = time.perf_counter() - t0
     return {"devices": n_devices, "data_axis": data_axis, "global_batch": global_batch,
             "examples_per_sec": round(args.steps * global_batch / dt, 1)}
@@ -97,8 +96,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--shard_embeddings", action="store_true")
     ap.add_argument("--platform", default="cpu", choices=("cpu", "native"),
-                    help="cpu = N virtual CPU devices per size (dev box); "
-                         "native = whatever JAX exposes (pod slice)")
+                    help="cpu = N virtual CPU devices per size; "
+                         "native = the cards JAX exposes")
     ap.add_argument("--_child", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
 

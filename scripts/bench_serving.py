@@ -46,7 +46,7 @@ def main() -> None:
                      n_ctx=cat.n_ctx, d=64, g=256, seq_len=50,
                      target_len=100, n_blocks=2, n_heads=2, dropout=0.5,
                      embedding="all", encoding="identity",
-                     decoder=args.decoder, use_pallas="auto")
+                     decoder=args.decoder)
     params = carca_init(jax.random.PRNGKey(0), mc)
 
     t0 = time.perf_counter()

@@ -3,7 +3,7 @@
 The reference publishes no benchmarks (SURVEY.md §6 / BASELINE.md), so the
 parity/throughput target is *measured* by running the reference itself —
 read-only, via its own CLI — on the same deterministic synthetic dataset
-the TPU framework benches on, then recorded in BASELINE_MEASURED.json for
+this framework benches on, then recorded in BASELINE_MEASURED.json for
 ``bench.py``'s ``vs_baseline``.
 
 Usage:

@@ -61,7 +61,7 @@ def run_ours(fam: dict, epochs: int, early_stop: int, out_dir: str) -> dict:
         d=fam["d_dim"], g=fam["g_dim"], seq_len=fam["seq_len"],
         target_len=100, n_blocks=2, n_heads=2, dropout=0.5,
         embedding=fam["embedding"], encoding="identity",
-        decoder=fam["decoder"], use_pallas="auto")
+        decoder=fam["decoder"])
     cfg = Config(
         model=mc,
         data=DataConfig(synthetic=True),

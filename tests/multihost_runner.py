@@ -77,8 +77,8 @@ def main() -> None:
                          checkpoint=(mode == "host"))
     resumed_from = None
     if mode == "failover_b":
-        # committed resume snapshots are pure-digit step dirs (orbax
-        # renames its *.orbax-checkpoint-tmp-* dir on commit)
+        # committed resume snapshots are pure-digit step dirs (a save
+        # writes a .tmp-<step> dir and renames it on commit)
         import os as _os
         latest = _os.path.join(out_dir, "ckpt", "latest")
         steps = [int(d) for d in _os.listdir(latest) if d.isdigit()]
@@ -116,7 +116,7 @@ def main() -> None:
     sys.stdout.flush()
     # Explicit shutdown + hard exit: leaving the distributed shutdown
     # barrier to interpreter teardown is flaky — a leaked non-daemon
-    # thread (orbax async machinery / grpc) can stall one process's
+    # thread (async machinery / grpc) can stall one process's
     # teardown past the 5-minute barrier deadline, and the coordination
     # service then kills BOTH processes (observed ~50% of runs with both
     # processes having already printed correct RESULTs). Reaching the

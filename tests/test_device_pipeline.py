@@ -56,9 +56,9 @@ def test_train_assembly_matches_host(setup):
 def test_packed_gather_fallback_matches(setup):
     """The fused evt_packed gather (item ids ride as exact f32 values) must
     agree field-for-field with the separate-gather fallback used beyond
-    2²⁴ items. Ids must NOT be bitcast: on real TPU hardware ids bitcast to
-    f32 are denormals and get flushed to zero in a relayout (caught only by
-    an on-chip run; this CPU test pins the two paths to each other)."""
+    2²⁴ items. Ids must NOT be bitcast: ids bitcast to f32 are denormals,
+    which hardware may flush to zero in a relayout (caught only by an
+    accelerator run; this CPU test pins the two paths to each other)."""
     cat, L, T, host, dev = setup
     rows = jnp.asarray(np.concatenate([host.users("train")[:16], [-1]]),
                        jnp.int32)

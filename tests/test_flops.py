@@ -1,5 +1,7 @@
 """Analytic FLOP accounting (utils/flops.py) — hand-computed oracle."""
 
+import pytest
+
 from carca_tpu.config import ModelConfig
 from carca_tpu.utils.flops import (device_peak_flops, device_peak_hbm_bps,
                                    forward_flops_per_example,
@@ -61,11 +63,48 @@ def test_hbm_bytes_model():
 
 
 def test_device_peak_lookup():
-    class FakeDev:
-        device_kind = "TPU v5 lite"
-    assert device_peak_flops(FakeDev()) == 197e12
-    assert device_peak_hbm_bps(FakeDev()) == 819e9
+    class H100:
+        device_kind = "NVIDIA H100 80GB HBM3"
+    # the denominator follows the compute dtype: TF32 for f32 matmuls
+    assert device_peak_flops(H100()) == 495e12
+    assert device_peak_flops(H100(), "float32") == 495e12
+    assert device_peak_flops(H100(), "bfloat16") == 989e12
+    assert device_peak_hbm_bps(H100()) == 3.35e12
+
+
+@pytest.mark.parametrize("lookup", [device_peak_flops, device_peak_hbm_bps])
+def test_device_peak_unknown_device_raises(lookup):
     class Unknown:
         device_kind = "abacus"
-    assert device_peak_flops(Unknown()) is None
-    assert device_peak_hbm_bps(Unknown()) is None
+    with pytest.raises(ValueError, match="abacus"):
+        lookup(Unknown())
+
+
+def test_profile_reducer_scopes_and_busy_time():
+    """The trace reduction kept with the benchmark: HLO instruction →
+    name-scope map (fusions inherit their fused ops' scopes) and the union
+    of kernel intervals (overlaps counted once)."""
+    import importlib.util
+    import os
+
+    import jax
+    import jax.numpy as jnp
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "profile_step.py")
+    spec = importlib.util.spec_from_file_location("profile_step", path)
+    ps = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ps)
+
+    def f(x):
+        with jax.named_scope("attention"):
+            y = jax.nn.softmax(x @ x.T)
+        return jnp.sum(y * 2.0)
+
+    text = jax.jit(f).lower(jnp.ones((8, 8))).compile().as_text()
+    scopes = ps.hlo_scopes(text)
+    assert any("jit(f)/attention/" in n for v in scopes.values() for n in v)
+    assert any(v and all("/attention/" not in n for n in v)
+               for v in scopes.values())  # the final sum is outside
+    assert ps._busy([(0, 10), (5, 15), (20, 30)]) == 25
+    assert ps._busy([]) == 0

@@ -1,7 +1,7 @@
 """Retrieval-aligned training objective: sampled softmax + K negatives.
 
 No reference counterpart (its loss is hard-wired 1-vs-1 masked BCE,
-``src/train.py:86-93``); these are TPU-native additions for the
+``src/train.py:86-93``); these are additions for the
 full-catalog retrieval north star (BASELINE configs[4], DESIGN §11c).
 """
 

@@ -41,7 +41,7 @@ def _launch_pair(mode: str, out_dir: str, devices_per_proc: int = 1):
     # subprocess output goes to FILES, not pipes: waiting on proc 0 while
     # proc 1 fills a 64 KB stdout pipe deadlocks the pair (proc 1 blocks
     # on write, never reaches the distributed shutdown barrier, proc 0
-    # times out at it — observed with orbax's chatty save logging)
+    # times out at it — observed with chatty checkpoint logging)
     logs = [os.path.join(out_dir + f".{mode}.proc{i}.log") for i in (0, 1)]
     os.makedirs(os.path.dirname(logs[0]), exist_ok=True)
     files = [open(p, "w") for p in logs]

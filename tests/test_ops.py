@@ -1,164 +1,149 @@
-"""Pallas kernel vs jnp-oracle parity (interpret mode on CPU).
-
-The fused attention kernel must reproduce the reference MHA semantics
-(SURVEY.md §2.1 #4): pre-scale additive mask, post-softmax re-mask, causal
-offsets 0/−1/None, no W_O — both forward values and gradients.
-"""
+"""Retrieval top-k kernel (ops/retrieval_topk.py) on the CPU: the Pallas
+stage-1 kernel in interpret mode against the plain-jnp stage 1, the
+kernel tournament against ``lax.top_k``, the wrapper's padding and block
+choice, and its backend guard. One ``gpu``-marked test runs the compiled
+kernel on the card."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from carca_tpu.models import attention
-from carca_tpu.ops.flash_attention import fused_attention
+from carca_tpu.ops import retrieval_topk as rt
+from carca_tpu.ops.retrieval_topk import (catalog_topk, dequantize_index,
+                                          groupmax_kernel, groupmax_plain,
+                                          quantize_index)
 
 
-def _rand_inputs(key, b, lq, lk, d, frac_pad=0.3):
-    ks = jax.random.split(key, 5)
-    q = jax.random.normal(ks[0], (b, lq, d), jnp.float32)
-    k = jax.random.normal(ks[1], (b, lk, d), jnp.float32)
-    v = jax.random.normal(ks[2], (b, lk, d), jnp.float32)
-    # right-aligned masks like real profiles; one row fully padded
-    qm = (jax.random.uniform(ks[3], (b, lq)) > frac_pad).astype(jnp.float32)
-    km = (jax.random.uniform(ks[4], (b, lk)) > frac_pad).astype(jnp.float32)
-    qm = qm.at[0].set(0.0)
-    km = km.at[0].set(0.0)
-    return q, k, v, qm, km
+def _catalog(dtype, r, d, seed):
+    e = jnp.asarray(np.random.default_rng(seed).normal(size=(r, d)),
+                    jnp.float32)
+    if dtype == "int8":
+        qi = quantize_index(e)
+        return qi.qvals, qi.scales[0]
+    return e.astype(dtype), None
 
 
-def _oracle(q, k, v, qm, km, causal, scale, n_heads):
-    b, lq, d = q.shape
-    dh = d // n_heads
-
-    def heads(x):
-        return x.reshape(b, x.shape[1], n_heads, dh).transpose(0, 2, 1, 3)
-
-    m = attention.pair_mask(qm, km, causal)
-    add = jnp.where(m > 0, 0.0, attention.NEG_MASK)
-    logits = jnp.einsum("bhqe,bhke->bhqk", heads(q), heads(k),
-                        preferred_element_type=jnp.float32)
-    logits = (logits + add[:, None]) / scale
-    w = jax.nn.softmax(logits, axis=-1) * m[:, None]
-    out = jnp.einsum("bhqk,bhke->bhqe", w, heads(v),
-                     preferred_element_type=jnp.float32)
-    return out.transpose(0, 2, 1, 3).reshape(b, lq, d)
+def _brute(q, e, scales, k, off=0, n_items=None):
+    """lax.top_k over exact f32 scores of the (rounded) catalog under the
+    kernel's contract (bf16-rounded queries for bf16/int8 catalogs)."""
+    if e.dtype != jnp.float32:
+        q = q.astype(jnp.bfloat16)
+    s = np.asarray(q.astype(jnp.float32)) @ np.asarray(
+        e.astype(jnp.float32)).T
+    if scales is not None:
+        s = s * np.asarray(scales)[None, :]
+    r = e.shape[0]
+    rows = np.arange(r) + off
+    s[:, (rows == 0) | (rows >= (n_items or off + r))] = -np.inf
+    order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(s, order, axis=1), order + off
 
 
-CASES = [
-    # (b, lq, lk, d, n_heads, causal)
-    (3, 10, 10, 16, 2, 0),       # encoder self-attention
-    (3, 20, 10, 16, 2, -1),      # train-time cross-attention
-    (3, 21, 10, 16, 4, None),    # eval cross-attention, odd Lq
-    (2, 7, 13, 32, 1, None),     # single head, ragged sizes
-]
-
-
-@pytest.mark.parametrize("b,lq,lk,d,n_heads,causal", CASES)
-def test_fused_attention_forward_matches_oracle(b, lq, lk, d, n_heads, causal):
-    q, k, v, qm, km = _rand_inputs(jax.random.PRNGKey(0), b, lq, lk, d)
-    scale = (d / n_heads) ** 0.5
-    got = fused_attention(q, k, v, qm, km, causal=causal, scale=scale,
-                          n_heads=n_heads)
-    want = _oracle(q, k, v, qm, km, causal, scale, n_heads)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+@pytest.mark.parametrize("rows", [1000, 2048 + 77])
+@pytest.mark.parametrize("id_offset", [0, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_stage1_kernel_matches_plain(dtype, id_offset, rows):
+    """Stage-1 group maxima: kernel (interpret mode) ≡ plain jnp, for each
+    catalog dtype, shard offset and a catalog that is not a whole number
+    of chunks (the tail rows go through the jnp tail path)."""
+    e, scales = _catalog(dtype, rows, 32, seed=rows)
+    q = jax.random.normal(jax.random.PRNGKey(0), (16, 32))
+    n_items = id_offset + rows - 5  # a few rows beyond the valid window
+    lim = jnp.array([n_items - id_offset, int(id_offset == 0)], jnp.int32)
+    gk = groupmax_kernel(q, e, scales, lim, chunk=512, block_q=16)
+    gp = groupmax_plain(q, e, scales, lim, chunk=256)
+    assert gk.shape == gp.shape == (16, -(-rows // 128))
+    np.testing.assert_allclose(np.asarray(gk), np.asarray(gp),
                                rtol=1e-5, atol=1e-5)
+    if id_offset == 0:  # the pad row is masked, the next row is not
+        assert np.isfinite(np.asarray(gk)[:, 0]).all()
 
 
-@pytest.mark.parametrize("b,lq,lk,d,n_heads,causal", CASES[:3])
-def test_fused_attention_grads_match_oracle(b, lq, lk, d, n_heads, causal):
-    q, k, v, qm, km = _rand_inputs(jax.random.PRNGKey(1), b, lq, lk, d)
-    scale = (d / n_heads) ** 0.5
-    co = jax.random.normal(jax.random.PRNGKey(2), (b, lq, d), jnp.float32)
-
-    def loss_fused(q, k, v):
-        out = fused_attention(q, k, v, qm, km, causal=causal, scale=scale,
-                              n_heads=n_heads)
-        return jnp.sum(out * co)
-
-    def loss_oracle(q, k, v):
-        return jnp.sum(_oracle(q, k, v, qm, km, causal, scale, n_heads) * co)
-
-    got = jax.grad(loss_fused, argnums=(0, 1, 2))(q, k, v)
-    want = jax.grad(loss_oracle, argnums=(0, 1, 2))(q, k, v)
-    for g, w, name in zip(got, want, "qkv"):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(w),
-                                   rtol=1e-4, atol=1e-4, err_msg=f"d{name}")
+@pytest.mark.parametrize("k", [1, 10, 60])
+def test_kernel_tournament_matches_lax_topk(k):
+    rng = np.random.default_rng(k)
+    r, b, d = 3000, 8, 16
+    q = jnp.asarray(rng.normal(size=(b, d)), jnp.float32)
+    e = jnp.asarray(rng.normal(size=(r, d)), jnp.float32)
+    v, ids = catalog_topk(q, e, k)
+    bv, bi = _brute(q, e, None, k)
+    np.testing.assert_allclose(np.asarray(v), bv, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(ids), bi)
 
 
-def test_fused_attention_padded_rows_emit_zero():
-    q, k, v, qm, km = _rand_inputs(jax.random.PRNGKey(3), 2, 8, 8, 16)
-    out = fused_attention(q, k, v, qm, km, causal=0, scale=2.0, n_heads=2)
-    # fully-masked batch row 0 → exact zeros (post-softmax re-mask)
-    np.testing.assert_array_equal(np.asarray(out[0]), 0.0)
-    # padded query rows → zeros
-    np.testing.assert_array_equal(np.asarray(out[1] * (1 - qm[1][:, None])), 0.0)
+def test_kernel_tournament_exact_under_ties():
+    """Integer scores (exact in f32) with many duplicates straddling group
+    boundaries: first-occurrence order must match lax.top_k exactly."""
+    rng = np.random.default_rng(11)
+    e = jnp.asarray(rng.integers(0, 3, (1500, 16)), jnp.float32)
+    q = jnp.asarray(rng.integers(0, 3, (6, 16)), jnp.float32)
+    for kernel in (True, False):
+        v, ids = catalog_topk(q, e, 40, kernel=kernel)
+        bv, bi = _brute(q, e, None, 40)
+        np.testing.assert_array_equal(np.asarray(v), bv)
+        np.testing.assert_array_equal(np.asarray(ids), bi)
 
 
-def test_mha_apply_pallas_path_matches_jnp_path():
-    """End-to-end through mha_apply (projections included)."""
-    d, h = 16, 2
-    key = jax.random.PRNGKey(4)
-    params = attention.mha_init(key, d)
-    q, k, v, qm, km = _rand_inputs(jax.random.PRNGKey(5), 3, 12, 9, d)
-    kw = dict(n_heads=h, causal=None, dropout_rate=0.0, train=False, rng=None)
-    ref = attention.mha_apply(params, q, k, v, qm, km, use_pallas=False, **kw)
-    fused = attention.mha_apply(params, q, k, v, qm, km, use_pallas=True, **kw)
-    np.testing.assert_allclose(np.asarray(fused), np.asarray(ref),
-                               rtol=1e-5, atol=1e-5)
+@pytest.mark.parametrize("b,r,d", [(1, 300, 16), (20, 1000, 64),
+                                   (130, 2049, 24)])
+def test_wrapper_pads_batch_and_width(b, r, d, monkeypatch):
+    """B and R that are not multiples of the block, and a width that is
+    not a power of two: the wrapper pads the queries to whole ≥16-row
+    blocks and the width to a power of two ≥ 16, picks a power-of-two
+    chunk ≤ R, and the padding never leaks into the results."""
+    seen = {}
+    real = rt.groupmax_kernel
+
+    def spy(q, e, scales, lim, **kw):
+        seen.update(shape=q.shape, width=e.shape[1], **kw)
+        return real(q, e, scales, lim, **kw)
+
+    monkeypatch.setattr(rt, "groupmax_kernel", spy)
+    rng = np.random.default_rng(b)
+    q = jnp.asarray(rng.normal(size=(b, d)), jnp.float32)
+    e = jnp.asarray(rng.normal(size=(r, d)), jnp.float32)
+    v, ids = catalog_topk(q, e, 5)
+    bq, chunk = seen["block_q"], seen["chunk"]
+    assert bq & (bq - 1) == 0 and 16 <= bq <= 128
+    assert seen["shape"][0] % bq == 0 and seen["shape"][0] >= b
+    w = seen["width"]
+    assert w >= max(d, 16) and w & (w - 1) == 0
+    assert chunk & (chunk - 1) == 0 and 128 <= chunk <= max(r, 128)
+    assert v.shape == ids.shape == (b, 5)
+    bv, bi = _brute(q, e, None, 5)
+    np.testing.assert_allclose(np.asarray(v), bv, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(ids), bi)
 
 
-def test_fused_attention_dropout_fallback_shape_and_scale():
-    """CPU fallback path with dropout: masked-out rows stay zero, mean is
-    preserved in expectation (loose statistical check)."""
-    q, k, v, qm, km = _rand_inputs(jax.random.PRNGKey(6), 4, 10, 10, 16,
-                                   frac_pad=0.0)
-    out = fused_attention(q, k, v, qm, km, causal=0, scale=2.0, n_heads=2,
-                          dropout_rate=0.5, rng=jax.random.PRNGKey(7))
-    assert out.shape == (4, 10, 16)
-    assert np.isfinite(np.asarray(out)).all()
+def test_backend_guard_raises_on_unknown_backend(monkeypatch):
+    """Interpret mode only on the CPU, compiled on the GPU, and no silent
+    interpreter anywhere else."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    assert rt.interpret_mode() is True
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert rt.interpret_mode() is False
+    monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+    with pytest.raises(ValueError, match="no kernel for backend 'rocm'"):
+        rt.interpret_mode()
 
 
-def test_block_b_working_set_fits_scoped_vmem():
-    """Regression: the bwd working-set estimate must keep every realistic
-    shape under the kernel's scoped-VMEM limit. The folded-target decoder
-    at small dims (B=128, bq=16, Lkp=128, dh=32) previously overflowed the
-    16 MB default because lane padding (minor dim → 128) was ignored."""
-    from carca_tpu.ops.flash_attention import (
-        _VMEM_LIMIT, _bwd_vmem_bytes, _pick_block_b, _round_up)
-
-    shapes = []
-    for b in (32, 64, 128, 256, 512, 2048):
-        for lq in (10, 16, 50, 101, 200, 512):
-            for lk in (10, 50, 128, 200, 256):
-                for dh in (16, 32, 64, 128):
-                    shapes.append((b, lq, lk, dh))
-    for b, lq, lk, dh in shapes:
-        bq = min(512, max(8, _round_up(lq, 8)))
-        lkp = _round_up(lk, 128)
-        bb = _pick_block_b(b, bq, lkp, dh)
-        assert b % bb == 0
-        assert _bwd_vmem_bytes(bb, bq, lkp, dh) <= _VMEM_LIMIT, (b, lq, lk, dh)
-
-    # lane padding is modeled: at dh=32 a K/V block costs 4x its logical size
-    assert _bwd_vmem_bytes(8, 16, 128, 32) == _bwd_vmem_bytes(8, 16, 128, 128)
+def test_catalog_topk_k_exceeding_rows_raises():
+    q = jnp.zeros((4, 16))
+    e = jnp.zeros((100, 16))
+    with pytest.raises(ValueError, match=r"k=101 must lie in \[1, 100\]"):
+        catalog_topk(q, e, 101)
 
 
-def test_fused_attention_out_of_regime_falls_back_to_jnp():
-    """Shapes whose backward working set cannot fit scoped VMEM at any
-    block size must produce the jnp math, not a Mosaic compile error."""
-    from carca_tpu.ops import flash_attention as fa
-
-    # huge Lk: K/V blocks alone exceed the budget even at bb=1, bq=8
-    b, lq, lk, d, h = 1, 8, 70_000, 16, 2
-    assert fa._bwd_vmem_bytes(1, 8, fa._round_up(lk, 128), d // h) > (
-        fa._VMEM_LIMIT * 2) // 3
-    q, k, v, qm, km = _rand_inputs(jax.random.PRNGKey(0), b, lq, lk, d)
-    scale = (d / h) ** 0.5
-    out = fused_attention(q, k, v, qm, km, causal=None, scale=scale,
-                          n_heads=h)
-    ref = _oracle(q, k, v, qm, km, None, scale, h)
-    np.testing.assert_allclose(out, ref, atol=1e-5)
+def test_quantized_index_roundtrip_and_pad_row():
+    e = jnp.asarray(np.random.default_rng(3).normal(size=(50, 16)),
+                    jnp.float32).at[0].set(0.0)
+    qi = quantize_index(e)
+    assert qi.qvals.dtype == jnp.int8 and qi.scales.shape == (1, 50)
+    deq = dequantize_index(qi)
+    assert float(jnp.max(jnp.abs(deq[0]))) == 0.0  # pad row scores 0
+    step = np.asarray(jnp.max(jnp.abs(e), axis=1) / 127.0)[:, None]
+    assert (np.abs(np.asarray(deq - e)) <= step / 2 + 1e-7).all()
 
 
 def test_catalog_topk_shard_slice_pad_rows_masked():
@@ -166,8 +151,6 @@ def test_catalog_topk_shard_slice_pad_rows_masked():
     entered the top-k with fabricated score 0 under the NEXT shard's ids
     whenever all real scores were negative (cosine decoders, exclusion
     tails)."""
-    from carca_tpu.ops.retrieval_topk import catalog_topk
-
     rng = np.random.default_rng(0)
     q = jnp.asarray(np.abs(rng.normal(size=(4, 16))) + 0.1, jnp.float32)
     e = jnp.asarray(-np.abs(rng.normal(size=(130, 16))) - 1.0, jnp.float32)
@@ -180,44 +163,28 @@ def test_catalog_topk_shard_slice_pad_rows_masked():
     assert (np.asarray(v) < 0).all()
 
 
-def test_catalog_topk_k_exceeding_chunk_raises():
-    from carca_tpu.ops.retrieval_topk import catalog_topk
-
-    q = jnp.zeros((4, 16))
-    e = jnp.zeros((4096, 16))
-    with pytest.raises(ValueError, match="chunk width"):
-        catalog_topk(q, e, 200, n_items=4096, chunk=128)
-
-
-def test_fused_path_raises_without_rng():
-    """Both dispatch paths fail identically when dropout needs an rng —
-    the fused kernel must not silently train without attention dropout."""
+def test_mha_apply_raises_without_rng():
+    """Train-mode dropout without a key is an error, never a silent
+    dropout-free step."""
     from carca_tpu.models.attention import mha_apply, mha_init
 
     params = mha_init(jax.random.PRNGKey(0), 16)
     x = jnp.ones((2, 4, 16))
     m = jnp.ones((2, 4))
-    for use_pallas in (False, True):
-        with pytest.raises(ValueError, match="rng"):
-            mha_apply(params, x, x, x, m, m, n_heads=2, causal=0,
-                      dropout_rate=0.5, train=True, rng=None,
-                      use_pallas=use_pallas)
+    with pytest.raises(ValueError, match="rng"):
+        mha_apply(params, x, x, x, m, m, n_heads=2, causal=0,
+                  dropout_rate=0.5, train=True, rng=None)
 
 
-def test_fused_kernel_bf16_matches_oracle_bf16():
-    """compute_dtype='bfloat16' must actually reach the kernel's QK^T /
-    PV matmuls and match the jnp oracle's bf16 semantics."""
-    from carca_tpu.models.attention import mha_apply, mha_init
-
-    rng = np.random.default_rng(1)
-    d, H, B, L = 32, 2, 2, 16
-    params = mha_init(jax.random.PRNGKey(1), d)
-    x = jnp.asarray(rng.normal(size=(B, L, d)), jnp.float32)
-    mask = jnp.ones((B, L))
-    kw = dict(n_heads=H, causal=0, dropout_rate=0.0, train=False, rng=None,
-              compute_dtype=jnp.bfloat16)
-    ref = mha_apply(params, x, x, x, mask, mask, use_pallas=False, **kw)
-    got = mha_apply(params, x, x, x, mask, mask, use_pallas=True, **kw)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=2e-2, atol=2e-2)  # bf16 rounding
-
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_compiled_kernel_matches_plain_on_gpu(gpu, dtype):
+    """The compiled (non-interpret) kernel against the plain stage 1 on
+    the card, at the model width."""
+    e, scales = _catalog(dtype, 100_003, 64, seed=1)
+    q = jax.random.normal(jax.random.PRNGKey(0), (256, 64))
+    lim = jnp.array([100_003, 1], jnp.int32)
+    gk = groupmax_kernel(q, e, scales, lim)
+    gp = groupmax_plain(q, e, scales, lim)
+    np.testing.assert_allclose(np.asarray(gk), np.asarray(gp),
+                               rtol=1e-5, atol=1e-4)

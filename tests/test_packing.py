@@ -14,13 +14,14 @@ from tests.conftest import skip_unless_devices
 
 
 def test_pack_factor_rules():
-    assert pack_factor(64, 10_000_000, "auto") == 2
-    assert pack_factor(64, 1000, "auto") == 1  # small tables stay plain
+    # "auto" never packs: the GPU stores narrow rows densely
+    assert pack_factor(64, 10_000_000, "auto") == 1
+    assert pack_factor(64, 1000, "auto") == 1
     assert pack_factor(64, 1000, True) == 2
     assert pack_factor(64, 10_000_000, False) == 1
     assert pack_factor(128, 10_000_000, True) == 1  # already lane-full
     assert pack_factor(12, 10_000_000, True) == 1  # 128 % 12 != 0
-    assert pack_factor(32, 2_000_000, "auto") == 4
+    assert pack_factor(32, 2_000_000, True) == 4
 
 
 def test_pack_unpack_roundtrip():

@@ -83,15 +83,14 @@ def test_retrieval_hr_ndcg_formula():
 
 
 def test_kernel_topk_matches_lax_topk():
-    """Streaming kernel ≡ jax.lax.top_k over several shapes/offsets."""
+    """Kernel tournament ≡ jax.lax.top_k over several shapes/offsets."""
     from carca_tpu.ops.retrieval_topk import catalog_topk
     rng = np.random.default_rng(3)
     for r, b, d, k, off in [(500, 8, 16, 10, 0), (1000, 4, 32, 7, 0),
                             (300, 8, 16, 5, 300)]:
         q = jnp.asarray(rng.normal(size=(b, d)), jnp.float32)
         e = jnp.asarray(rng.normal(size=(r, d)), jnp.float32)
-        v, ids = catalog_topk(q, e, k, n_items=off + r, id_offset=off,
-                              chunk=256)
+        v, ids = catalog_topk(q, e, k, n_items=off + r, id_offset=off)
         s = np.array(jnp.einsum("bd,rd->br", q, e))
         if off == 0:
             s[:, 0] = -np.inf  # pad id
@@ -103,17 +102,16 @@ def test_kernel_topk_matches_lax_topk():
 
 
 def test_tournament_topk_matches_lax_topk():
-    """Tournament method ≡ jax.lax.top_k: values, ids, and tie order, for
-    f32 / bf16 / int8 catalogs, with and without shard offsets, including
-    catalogs that are not multiples of the group width."""
+    """Tournament ≡ jax.lax.top_k: values, ids, and tie order, with and
+    without shard offsets, including catalogs that are not multiples of
+    the group width; int8 against the dequantized brute force."""
     from carca_tpu.ops.retrieval_topk import catalog_topk, quantize_index
     rng = np.random.default_rng(7)
     for r, b, d, k, off in [(1000, 8, 16, 10, 0), (517, 4, 32, 7, 0),
                             (777, 8, 16, 5, 777), (4096, 4, 16, 12, 0)]:
         q = jnp.asarray(rng.normal(size=(b, d)), jnp.float32)
         e = jnp.asarray(rng.normal(size=(r, d)), jnp.float32)
-        v, ids = catalog_topk(q, e, k, n_items=off + r, id_offset=off,
-                              chunk=256, method="tournament")
+        v, ids = catalog_topk(q, e, k, n_items=off + r, id_offset=off)
         s = np.array(jnp.einsum("bd,rd->br", q, e))
         if off == 0:
             s[:, 0] = -np.inf  # pad id
@@ -123,14 +121,12 @@ def test_tournament_topk_matches_lax_topk():
                                        rtol=1e-5, atol=1e-6)
             np.testing.assert_array_equal(np.asarray(ids[bi]), order + off)
 
-    # quantized index: tournament ≡ stream kernel's top-k SET on the same
-    # int8 scores (tournament scores are exact f32-accumulated; the stream
-    # packed mode truncates — compare against the dequantized brute force)
+    # quantized index: exact f32-accumulated scores of the int8 rows
     from carca_tpu.ops.retrieval_topk import dequantize_index
     e = jnp.asarray(rng.normal(size=(900, 16)), jnp.float32)
     q = jnp.asarray(rng.normal(size=(4, 16)), jnp.float32)
     qi = quantize_index(e)
-    v, ids = catalog_topk(q, qi, 9, method="tournament")
+    v, ids = catalog_topk(q, qi, 9)
     sd = np.array(jnp.einsum(
         "bd,rd->br", q.astype(jnp.bfloat16),
         qi.qvals.astype(jnp.bfloat16),
@@ -153,7 +149,7 @@ def test_tournament_topk_exact_under_ties():
     # embeddings whose dots take few distinct integer values → heavy ties
     e = jnp.asarray(rng.integers(0, 3, (r, d)), jnp.float32)
     q = jnp.asarray(rng.integers(0, 3, (b, d)), jnp.float32)
-    v, ids = catalog_topk(q, e, k, chunk=256, method="tournament")
+    v, ids = catalog_topk(q, e, k)
     s = np.array(np.asarray(q) @ np.asarray(e).T)
     s[:, 0] = -np.inf
     for bi in range(b):
@@ -163,10 +159,9 @@ def test_tournament_topk_exact_under_ties():
 
 
 def test_tournament_topk_tiny_batch():
-    """b < 8 pads the query batch to one sublane tile inside
-    _tournament_topk (Mosaic mis-lowers the degenerate dot for b<8 on a
-    bf16/int8 catalog — hit by carca-serve's batch-1 bucket, round 5).
-    Values/ids must be exact and the padded rows must not leak out."""
+    """Batches below the kernel's 16-row minimum block (carca-serve's
+    batch-1 bucket) are padded inside the wrapper; values/ids must be
+    exact and the padded rows must not leak out."""
     from carca_tpu.ops.retrieval_topk import catalog_topk, quantize_index
     rng = np.random.default_rng(9)
     e = jnp.asarray(rng.normal(size=(700, 16)), jnp.float32)
@@ -174,7 +169,7 @@ def test_tournament_topk_tiny_batch():
     sd = None
     for b in (1, 3, 7):
         q = jnp.asarray(rng.normal(size=(b, 16)), jnp.float32)
-        v, ids = catalog_topk(q, qi, 6, method="tournament")
+        v, ids = catalog_topk(q, qi, 6)
         assert v.shape == (b, 6) and ids.shape == (b, 6)
         sd = np.array(jnp.einsum(
             "bd,rd->br", q.astype(jnp.bfloat16),
@@ -187,7 +182,7 @@ def test_tournament_topk_tiny_batch():
                                        rtol=1e-5, atol=1e-6)
             np.testing.assert_array_equal(np.asarray(ids[bi]), order)
         # f32 catalog too
-        vf, idf = catalog_topk(q, e, 6, method="tournament")
+        vf, idf = catalog_topk(q, e, 6)
         s = np.array(np.asarray(q) @ np.asarray(e).T)
         s[:, 0] = -np.inf
         for bi in range(b):
@@ -196,125 +191,40 @@ def test_tournament_topk_tiny_batch():
 
 
 def test_tournament_topk_huge_batch_single_chunk():
-    """b > 2048 forces a <8-group chunk via the VMEM cap; when the whole
-    padded catalog fits that one chunk the single-program grid is legal
-    (block sublane dim == array dim) and must not raise (advisor, round
-    4) — while a catalog too big for one chunk still raises with the
-    split-the-batch message."""
-    import pytest
-
+    """A query batch far beyond one block (4096 rows = 32 blocks of 128)
+    over a catalog of about one chunk: every block sees the same chunk
+    and tail, and every row's result is exact."""
     from carca_tpu.ops.retrieval_topk import catalog_topk
     rng = np.random.default_rng(3)
     b, r, d, k = 4096, 300, 8, 5
     q = jnp.asarray(rng.normal(size=(b, d)), jnp.float32)
     e = jnp.asarray(rng.normal(size=(r, d)), jnp.float32)
-    v, ids = catalog_topk(q, e, k, chunk=512, method="tournament")
+    v, ids = catalog_topk(q, e, k)
     s = np.array(np.asarray(q) @ np.asarray(e).T)
     s[:, 0] = -np.inf
-    for bi in range(0, b, 997):  # spot-check rows
-        order = np.argsort(-s[bi], kind="stable")[:k]
-        np.testing.assert_allclose(np.asarray(v[bi]), s[bi][order],
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_array_equal(np.asarray(ids[bi]), order)
-
-    e_big = jnp.asarray(rng.normal(size=(1000, d)), jnp.float32)
-    with pytest.raises(ValueError, match="split the query batch"):
-        catalog_topk(q, e_big, k, chunk=512, method="tournament")
-
-
-def test_tournament_recursive_stage2_matches_lax_topk():
-    """The recursive (two-level) tournament — query-major group-max
-    kernel + level-2 lane max + narrow top_ks — must stay exactly
-    lax.top_k: values, ids, first-occurrence tie order, shard offsets,
-    ragged catalogs, and int8 scales. Forced at toy scale by dropping
-    _RECURSIVE_MIN_GROUPS (padding rounds G up to a full 128-lane
-    super-group, so the pad-masking path is exercised hard)."""
-    import carca_tpu.ops.retrieval_topk as rt
-    from carca_tpu.ops.retrieval_topk import catalog_topk, quantize_index
-    rng = np.random.default_rng(13)
-    old = rt._RECURSIVE_MIN_GROUPS
-    rt._RECURSIVE_MIN_GROUPS = 1
-    try:
-        for r, b, d, k, off in [(1000, 8, 16, 10, 0), (517, 4, 32, 7, 0),
-                                (777, 8, 16, 5, 777), (4096, 4, 16, 12, 0),
-                                (33000, 4, 8, 9, 0)]:
-            q = jnp.asarray(rng.normal(size=(b, d)), jnp.float32)
-            e = jnp.asarray(rng.normal(size=(r, d)), jnp.float32)
-            v, ids = catalog_topk(q, e, k, n_items=off + r, id_offset=off,
-                                  chunk=256, method="tournament")
-            s = np.array(jnp.einsum("bd,rd->br", q, e))
-            if off == 0:
-                s[:, 0] = -np.inf  # pad id
-            for bi in range(b):
-                order = np.argsort(-s[bi], kind="stable")[:k]
-                np.testing.assert_allclose(np.asarray(v[bi]), s[bi][order],
-                                           rtol=1e-5, atol=1e-6)
-                np.testing.assert_array_equal(np.asarray(ids[bi]),
-                                              order + off)
-
-        # heavy cross-group ties: recursion must keep the global
-        # first-occurrence order through BOTH selection levels
-        e = jnp.asarray(rng.integers(0, 3, (1500, 4)), jnp.float32)
-        q = jnp.asarray(rng.integers(0, 3, (6, 4)), jnp.float32)
-        v, ids = catalog_topk(q, e, 8, chunk=256, method="tournament")
-        s = np.array(np.asarray(q) @ np.asarray(e).T)
-        s[:, 0] = -np.inf
-        for bi in range(6):
-            order = np.argsort(-s[bi], kind="stable")[:8]
-            np.testing.assert_array_equal(np.asarray(v[bi]), s[bi][order])
-            np.testing.assert_array_equal(np.asarray(ids[bi]), order)
-
-        # int8 index: per-row scales ride the lane axis in this layout
-        e = jnp.asarray(rng.normal(size=(900, 16)), jnp.float32)
-        q = jnp.asarray(rng.normal(size=(4, 16)), jnp.float32)
-        qi = quantize_index(e)
-        v, ids = catalog_topk(q, qi, 9, method="tournament")
-        sd = np.array(jnp.einsum(
-            "bd,rd->br", q.astype(jnp.bfloat16),
-            qi.qvals.astype(jnp.bfloat16),
-            preferred_element_type=jnp.float32) * qi.scales[0][None, :])
-        sd[:, 0] = -np.inf
-        for bi in range(4):
-            order = np.argsort(-sd[bi], kind="stable")[:9]
-            np.testing.assert_allclose(np.asarray(v[bi]), sd[bi][order],
-                                       rtol=1e-5, atol=1e-6)
-            np.testing.assert_array_equal(np.asarray(ids[bi]), order)
-    finally:
-        rt._RECURSIVE_MIN_GROUPS = old
+    order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    np.testing.assert_allclose(np.asarray(v),
+                               np.take_along_axis(s, order, axis=1),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(ids), order)
 
 
 def test_tournament_topk_sharded_and_in_pipeline(setup):
-    """method='tournament' slots into topk_given_queries (exclusions,
-    row_ids compaction) with identical results to the stream kernel."""
+    """The kernel tournament slots into topk_given_queries (exclusions
+    over-retrieved and filtered) with identical results to the XLA
+    path."""
     mc, params, profile, attrs = setup
     from carca_tpu.parallel.retrieval import queries, topk_given_queries
     q = queries(params, mc, profile, attrs)
     e = embed_catalog(params, mc, attrs)
     exclude = jnp.asarray(
         np.random.default_rng(5).integers(1, mc.n_items, (8, 4)), jnp.int32)
-    import carca_tpu.ops.retrieval_topk as rt
     v0, i0 = topk_given_queries(q, e, mc, 6, exclude=exclude,
                                 use_kernel=False)
-    old = rt._TOURNAMENT_MIN_ROWS
-    rt._TOURNAMENT_MIN_ROWS = 1  # force the tournament at toy scale
-    try:
-        v1, i1 = topk_given_queries(q, e, mc, 6, exclude=exclude)
-        # recursive stage 2 under the same pipeline (exclusions, row_ids
-        # compaction, traced shard offsets)
-        old2 = rt._RECURSIVE_MIN_GROUPS
-        rt._RECURSIVE_MIN_GROUPS = 1
-        try:
-            v2, i2 = topk_given_queries(q, e, mc, 6, exclude=exclude)
-        finally:
-            rt._RECURSIVE_MIN_GROUPS = old2
-    finally:
-        rt._TOURNAMENT_MIN_ROWS = old
+    v1, i1 = topk_given_queries(q, e, mc, 6, exclude=exclude)
     np.testing.assert_allclose(np.asarray(v0), np.asarray(v1),
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-    np.testing.assert_allclose(np.asarray(v0), np.asarray(v2),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(i0), np.asarray(i2))
 
 
 def test_full_catalog_topk_kernel_equals_xla(setup):
@@ -347,20 +257,6 @@ def test_sharded_kernel_topk_matches_single_device(setup):
     np.testing.assert_allclose(np.asarray(v0), np.asarray(v1),
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-
-    # recursive-tournament stage 2 per shard (traced id_offset windows,
-    # heavy 128-super-group padding of the tiny shards)
-    import carca_tpu.ops.retrieval_topk as rt
-    oldt, oldr = rt._TOURNAMENT_MIN_ROWS, rt._RECURSIVE_MIN_GROUPS
-    rt._TOURNAMENT_MIN_ROWS, rt._RECURSIVE_MIN_GROUPS = 1, 1
-    try:
-        v2, i2 = full_catalog_topk(params_p, mc, profile, attrs_p, k,
-                                   mesh=mesh, use_kernel=True)
-    finally:
-        rt._TOURNAMENT_MIN_ROWS, rt._RECURSIVE_MIN_GROUPS = oldt, oldr
-    np.testing.assert_allclose(np.asarray(v0), np.asarray(v2),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(i0), np.asarray(i2))
 
 
 def test_embed_catalog_chunked_matches_unchunked(setup):
@@ -508,10 +404,8 @@ def test_topk_rejects_k_beyond_catalog(setup):
 
 
 def test_catalog_topk_large_query_batch():
-    """Regression: the [B, C] score scratch must shrink its chunk when the
-    query batch grows — B=1024 with the default 4096 chunk overflowed the
-    16 MB scoped-VMEM limit on TPU. (Interpret mode can't enforce VMEM;
-    this checks the shrunken-chunk path stays correct.)"""
+    """A query batch of several kernel blocks (1024 = 8 × 128): every
+    block's group maxima land in their own output rows."""
     from carca_tpu.ops.retrieval_topk import catalog_topk
 
     b, n = 1024, 4096

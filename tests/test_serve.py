@@ -133,6 +133,36 @@ def test_checkpoint_roundtrip_serving(cat, tmp_path):
     np.testing.assert_allclose(scores, scores2, rtol=1e-6)
 
 
+def test_config_from_old_run_dir_ignores_use_pallas(cat, tmp_path):
+    """args.json files written before the fused-attention kernel was
+    retired still carry ``use_pallas``; they load without it."""
+    mc = make_model("ca", cat)
+    cfg = Config(model=mc, train=TrainConfig(batch_size=8))
+    path = os.path.join(tmp_path, "args.json")
+    cfg.dump_args_json(path)
+    flat = json.load(open(path))
+    flat["use_pallas"] = "auto"
+    with open(path, "w") as fh:
+        json.dump(flat, fh)
+    got = config_from_run_dir(str(tmp_path))
+    assert got.model == mc and not hasattr(got.model, "use_pallas")
+
+
+def test_recommender_plain_stage1_matches_kernel(cat):
+    """``use_kernel=False`` (the plain XLA stage 1 used as the check's
+    reference) and the kernel serve the same ids."""
+    params = carca_init(jax.random.PRNGKey(4), make_model("ca", cat))
+    mc = make_model("ca", cat)
+    hists = histories_of(cat, range(5))
+    a = Recommender(params, mc, cat.attrs, shortlist=20, batch_buckets=(8,))
+    b = Recommender(params, mc, cat.attrs, shortlist=20, batch_buckets=(8,),
+                    use_kernel=False)
+    ids_a, v_a = a.recommend(hists, k=5)
+    ids_b, v_b = b.recommend(hists, k=5)
+    np.testing.assert_array_equal(ids_a, ids_b)
+    np.testing.assert_allclose(v_a, v_b, rtol=1e-6)
+
+
 def test_service_request_shapes(cat, tmp_path, monkeypatch, capsys):
     """The JSON-lines loop answers well-formed and malformed requests."""
     import io

@@ -181,7 +181,7 @@ def test_resolve_validation_and_serve_restore(tmp_path):
 def test_resume_adopts_saved_opt_structure(tmp_path):
     """Resuming with a changed auto decision (sparse run resumed with
     sparse_items_adam=false) adopts the checkpoint's structure instead of
-    crashing on an orbax tree mismatch."""
+    crashing on a checkpoint tree mismatch."""
     cat = synthetic_catalog(n_users=120, n_real_items=90, seed=9)
     mc = ModelConfig(n_items=cat.n_items, n_attrs=cat.n_attrs,
                      n_ctx=cat.n_ctx, d=16, g=32, seq_len=8, target_len=12,
